@@ -1,8 +1,8 @@
 // Native dense ADMM QP solver with OSQP-equivalent semantics.
 //
 // Role in the framework: the reference depends on the OSQP C library for every
-// convex solve (car/driving.py:430-440 etc.); the TPU compute path replaces it
-// with the on-chip solvers in riskaversetrajopt_tpu/ops/{admm,ipm}.py. This
+// convex solve (car/driving.py:430-440 etc.); the device compute path replaces
+// it with the solvers in riskaversetrajopt_tpu/ops/{admm,ipm}.py. This
 // C++ implementation is the framework's native host-side engine: an
 // independent oracle for cross-checking the JAX solvers in tests, and a fast
 // CPU fallback for host-side estimation QPs (AVaR validation) without any

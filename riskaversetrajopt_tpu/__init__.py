@@ -1,6 +1,6 @@
-"""riskaversetrajopt_tpu — TPU-native risk-averse trajectory optimization.
+"""riskaversetrajopt_tpu — risk-averse trajectory optimization on accelerators.
 
-A from-scratch JAX/XLA/Pallas framework implementing sample-average-approximation
+A from-scratch JAX/XLA framework implementing sample-average-approximation
 (SAA) risk-averse trajectory optimization (Lew, Bonalli, Pavone, "Risk-Averse
 Trajectory Optimization via Sample Average Approximation", arXiv:2307.03167),
 with the capabilities of the reference StanfordASL/RiskAverseTrajOpt repository:
@@ -16,11 +16,11 @@ with the capabilities of the reference StanfordASL/RiskAverseTrajOpt repository:
   direct-transcription hopper workload and the Gaussian drone baseline,
 - Gaussian-linearization baselines (covariance propagation + quantile back-off),
 - Monte-Carlo out-of-sample validation with AVaR/VaR estimators,
-- multi-chip scaling via `jax.sharding.Mesh` (samples sharded over devices,
-  SAA reductions via psum over ICI).
+- multi-device scaling via `jax.sharding.Mesh` (samples sharded over
+  devices, SAA reductions via psum).
 
 Unlike the reference (CPU-pinned float64 scripts + native OSQP/IPOPT), every
-hot path here is a compiled XLA program designed for TPU: `lax.scan` rollouts
+hot path here is a compiled XLA program for an accelerator: `lax.scan` rollouts
 with fused forward-mode linearization, structured sample-parallel KKT solves
 (Schur complement over the sample axis), and batched problem-level parallelism
 for (alpha x repeat) sweeps.

@@ -68,7 +68,7 @@ class SolverConfig:
     # per QP, and enabling this shifts the SCP solution branch enough to
     # break the 1e-3 golden-tracking contract
     # (tests/test_reference_parity.py: 2.2e-3 vs 1e-3 at car M=50). The
-    # bench's speed mode opts in (BENCH_RHO_WS): measured 2-3x fewer ADMM
+    # bench's speed mode opts in (bench.make): measured 2-3x fewer ADMM
     # iterations on the post-transition tail QPs at M=1000.
     rho_warm_start: bool = False
     # Adaptive-rho epoch cadence. 0 (default) = event-driven: the inner
@@ -80,12 +80,13 @@ class SolverConfig:
     # refactor request freeze it until every element exits the inner loop,
     # desynchronizing rho adaptation across the batch — measured at B=4,
     # M=1000: the same instance takes 12075 iterations batched vs 3200
-    # serial, and wall time inflates 24x (tools/probe_batched4.py).
+    # serial (PARITY.md round 3).
     rho_epoch_every: int = 0
     # Refactorize when the adapted rho moves by more than this factor from
     # the current one (OSQP default 5). Smaller = more eager rho tracking;
-    # each refactorization costs ~0.07 ms at M=1000 (structured Schur), so
-    # eagerness is cheap here relative to OSQP's sparse LDL^T.
+    # a refactorization is one (n+2)-dim dense Cholesky of the structured
+    # Schur block, so eagerness is cheap here relative to OSQP's sparse
+    # LDL^T.
     rho_update_factor: float = 5.0
     sigma: float = 1e-6
     alpha_relax: float = 1.6
@@ -93,40 +94,39 @@ class SolverConfig:
     adaptive_rho_interval: int = 50
     polish: bool = True
     polish_refine_iters: int = 3
-    # Iterative-refinement steps applied to KKT solves (helps f32 on TPU).
+    # Iterative-refinement steps applied to KKT solves (helps f32).
     kkt_refine_iters: int = 1
     # Residual operator for in-iteration KKT refinement: "true" (exact
     # residual via 2 extra G-sweeps per pass; also corrects the
     # factor-formation error) or "factored" (residual against the stored
-    # Schur blocks; ~0 extra HBM traffic, corrects the triangular-solve
+    # Schur blocks; ~0 extra memory traffic, corrects the triangular-solve
     # roundoff only). See ops/saa_qp.SAAQPOps.
     kkt_refine_mode: str = "true"
     # Refine the KKT solve only every P-th ADMM iteration (1 = every
-    # iteration). Each refinement pass costs 2 extra G-sweeps — the
-    # HBM-bound core of the structured iteration. MEASURED (M=1000 TPU
-    # f32, eps 1e-4 + polish): period=4 is a false economy — alternating
-    # between the refined and unrefined fixed-point maps makes the
-    # iterate wander (17075 total ADMM iterations vs 5725 at period=1,
+    # iteration). Each refinement pass costs 2 extra G-sweeps, the
+    # memory-heavy core of the structured iteration. Measured (M=1000 f32,
+    # eps 1e-4 + polish; PARITY.md round 3): period=4 is a false economy —
+    # alternating between the refined and unrefined fixed-point maps makes
+    # the iterate wander (17075 total ADMM iterations vs 5725 at period=1,
     # SCP l2_final 9.3e-2 vs 5.7e-3). Kept for experimentation; leave at
     # 1 for production.
     kkt_refine_period: int = 1
     # Apply the Schur-complement solve through a PRECOMPUTED explicit
-    # inverse (one (n+2)x(n+2) MXU matvec per solve) instead of two
-    # sequential triangular solves. On TPU solve_triangular at n+2 ~ 62 is
-    # latency-bound; with kkt_refine_iters=1 the iteration runs 4 of them,
-    # dominating the measured ~100 us/iter at M=1000 (HBM floor ~40 us).
-    # The inverse is formed once per rho epoch; its application error is
-    # the same cond(S)*eps order as the triangular solve's and the
-    # in-iteration refinement contracts both identically. Default off
-    # (OSQP-parity semantics); the bench's speed mode opts in via
-    # BENCH_KKT_INV.
+    # inverse (one (n+2)x(n+2) matvec per solve) instead of two sequential
+    # triangular solves. solve_triangular at n+2 ~ 62 is latency-bound, and
+    # with kkt_refine_iters=1 the iteration runs 4 of them. The inverse is
+    # formed once per rho epoch; its application error is the same
+    # cond(S)*eps order as the triangular solve's and the in-iteration
+    # refinement contracts both identically. Default off (OSQP-parity
+    # semantics); the bench's speed mode (bench.make) opts in.
     kkt_chol_inverse: bool = False
-    # MXU precision for the per-iteration G-sweeps (matvec_A / rmatvec_A in
-    # ops/saa_qp.py — the einsums over the (M, K, n) Jacobian stack that
-    # dominate ADMM iteration cost at M=1000). "highest" = 6-pass f32
-    # (exact); "high" = 3-pass bf16x3 (~1e-6 relative, half the MXU feed
-    # cost); "default" = 1-pass bf16 (~1e-2 — known to slow ADMM convergence
-    # 3x, do not use for solves). Factorization, define-phase and golden
+    # Matmul precision of the per-iteration G-sweeps in f32 (matvec_A /
+    # rmatvec_A in ops/saa_qp.py — the einsums over the (M, K, n) Jacobian
+    # stack that dominate ADMM iteration cost at M=1000). On the H100:
+    # "highest" = full f32; "high" = TF32 (10-bit mantissa, ~1e-3 relative);
+    # "default" = XLA's choice, TF32 for f32. Lower precision is known to
+    # slow ADMM convergence; do not use it for solves. f64 sweeps are f64
+    # whatever this says. Factorization, define-phase and golden
     # comparisons stay HIGHEST regardless.
     sweep_precision: str = "highest"
     scaled_termination: bool = False
@@ -143,7 +143,7 @@ class SolverConfig:
     # Termination-check interval backoff: when a check finds the residuals
     # >100x away from tolerance, the next check is scheduled at double the
     # interval (up to check_backoff_max * check_every), resetting to
-    # check_every once within range. Each check costs ~2 full-Jacobian HBM
+    # check_every once within range. Each check costs ~2 full-Jacobian
     # sweeps at M=1000, so long transition solves spend less on checking.
     # 1 = off (check every check_every iterations, OSQP default behavior).
     check_backoff_max: int = 1

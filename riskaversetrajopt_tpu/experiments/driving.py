@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from riskaversetrajopt_tpu import runtime
 from riskaversetrajopt_tpu.core.config import CarScenario
 from riskaversetrajopt_tpu.experiments import common
 from riskaversetrajopt_tpu.models.car import CarModel
@@ -31,6 +32,7 @@ from riskaversetrajopt_tpu.scp.driver import SAATrajOpt
 
 
 def main(argv=None):
+    runtime.configure()
     ap = argparse.ArgumentParser()
     ap.add_argument("--alphas", type=float, nargs="+",
                     default=[0.01, 0.02, 0.05, 0.1])
@@ -45,7 +47,7 @@ def main(argv=None):
     ap.add_argument("--skip-mc", action="store_true")
     ap.add_argument("--plot", action="store_true")
     ap.add_argument("--results", default="results")
-    # f32 for accelerator-only deployments (TPUs have no f64); the
+    # f32 for speed on an accelerator; the
     # reference pins CPU x64 (car/driving.py:13-18)
     ap.add_argument("--dtype", choices=["f64", "f32"], default="f64")
     args = ap.parse_args(argv)

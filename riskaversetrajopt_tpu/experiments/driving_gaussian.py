@@ -10,12 +10,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from riskaversetrajopt_tpu import runtime
 from riskaversetrajopt_tpu.core.config import CarScenario
 from riskaversetrajopt_tpu.experiments import common
 from riskaversetrajopt_tpu.models.car_gaussian import GaussianCarPlanner
 
 
 def main(argv=None):
+    runtime.configure()
     ap = argparse.ArgumentParser()
     ap.add_argument("--alphas", type=float, nargs="+",
                     default=[0.01, 0.02, 0.05, 0.1])

@@ -12,6 +12,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 
+from riskaversetrajopt_tpu import runtime
 from riskaversetrajopt_tpu.core.config import DroneScenario
 from riskaversetrajopt_tpu.experiments import common
 from riskaversetrajopt_tpu.models.drone_gaussian import GaussianDronePlanner
@@ -19,6 +20,7 @@ from riskaversetrajopt_tpu.ops.nlp_ipm import NLPConfig
 
 
 def main(argv=None):
+    runtime.configure()
     ap = argparse.ArgumentParser()
     ap.add_argument("--alphas", type=float, nargs="+",
                     default=[0.05, 0.1, 0.2, 0.3])

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from riskaversetrajopt_tpu import runtime
 from riskaversetrajopt_tpu.core.config import DroneScenario
 from riskaversetrajopt_tpu.experiments import common
 from riskaversetrajopt_tpu.models.drone import DroneModel
@@ -25,6 +26,7 @@ from riskaversetrajopt_tpu.scp.driver import SAATrajOpt
 
 
 def main(argv=None):
+    runtime.configure()
     ap = argparse.ArgumentParser()
     ap.add_argument("--alpha", type=float, default=0.1)
     ap.add_argument("--M", type=int, default=50)

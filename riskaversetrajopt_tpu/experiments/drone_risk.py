@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from riskaversetrajopt_tpu import runtime
 from riskaversetrajopt_tpu.core.config import DroneScenario
 from riskaversetrajopt_tpu.experiments import common
 from riskaversetrajopt_tpu.models.drone import DroneModel
@@ -31,6 +32,7 @@ from riskaversetrajopt_tpu.scp.driver import SAATrajOpt
 
 
 def main(argv=None):
+    runtime.configure()
     ap = argparse.ArgumentParser()
     ap.add_argument("--alphas", type=float, nargs="+",
                     default=[0.05, 0.1, 0.2, 0.3])

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from riskaversetrajopt_tpu import runtime
 from riskaversetrajopt_tpu.core.config import DroneScenario
 from riskaversetrajopt_tpu.experiments import common
 from riskaversetrajopt_tpu.models.drone import DroneModel
@@ -27,6 +28,7 @@ from riskaversetrajopt_tpu.scp.driver import SAATrajOpt
 
 
 def main(argv=None):
+    runtime.configure()
     ap = argparse.ArgumentParser()
     ap.add_argument("--Ms", type=int, nargs="+", default=[20, 30, 50])
     ap.add_argument("--repeats", type=int, default=30)
@@ -35,9 +37,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plot", action="store_true")
     ap.add_argument("--results", default="results")
-    # TPU-meaningful settings (the defaults reproduce the reference's
-    # CPU-x64 harness semantics; on a f32-only accelerator use
-    # --dtype f32 --eps 1e-4 --polish, the bench.py speed-mode config)
+    # solver settings (the defaults reproduce the reference's CPU-x64
+    # harness semantics; --dtype f32 --eps 1e-4 --polish is the bench.py
+    # speed-mode config)
     ap.add_argument("--dtype", choices=["f64", "f32"], default="f64")
     ap.add_argument("--eps", type=float, default=None)
     ap.add_argument("--eps-rel", type=float, default=None)

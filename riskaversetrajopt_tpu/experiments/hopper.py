@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from riskaversetrajopt_tpu import runtime
 from riskaversetrajopt_tpu.core.config import HopperScenario
 from riskaversetrajopt_tpu.experiments import common
 from riskaversetrajopt_tpu.models.hopper import HopperModel
@@ -37,7 +38,25 @@ def solve_phase(model, field, method, alpha, Z0, tol, max_iter,
     return res, xs, us
 
 
+def no_slip_violation(model, xs, us, field):
+    """Per-sample max no-slip violation of a solved contact schedule on
+    friction fields `field` (hopper.py:898-1008); safe where <= 1e-6."""
+    ee = jax.vmap(model.end_effector_position)(jnp.asarray(xs))
+    px = ee[model.contact_x_idx, 0]
+    forces = jnp.asarray(us)[model.contact_u_idx, 2:]
+
+    def one(i, th, ta):
+        mu = model.scn.mu_nom + jnp.sum(
+            i[None, :] * jnp.cos(th[None, :] * px[:, None] + ta[None, :]),
+            axis=1,
+        )
+        return jnp.max(forces[:, 0] - mu * forces[:, 1])
+
+    return jax.vmap(one)(field.intensities, field.thetas, field.taus)
+
+
 def main(argv=None):
+    runtime.configure()
     ap = argparse.ArgumentParser()
     ap.add_argument("--alphas", type=float, nargs="+",
                     default=[0.05, 0.1, 0.2, 0.3, 0.5, 0.75])
@@ -133,22 +152,8 @@ def main(argv=None):
                     us = np.load(f)
             except FileNotFoundError:
                 continue
-            ee = jax.vmap(model.end_effector_position)(jnp.asarray(xs))
-            px = ee[model.contact_x_idx, 0]
-            forces = jnp.asarray(us)[model.contact_u_idx, 2:]
-
-            def verify(i, th, ta):
-                mu = model.scn.mu_nom + jnp.sum(
-                    i[None, :] * jnp.cos(th[None, :] * px[:, None] + ta[None, :]),
-                    axis=1,
-                )
-                cons = forces[:, 0] - mu * forces[:, 1]
-                mx = jnp.max(cons)
-                return mx <= 1e-6, mx
-
-            ok, mx = jax.vmap(verify)(
-                mc_field.intensities, mc_field.thetas, mc_field.taus
-            )
+            mx = no_slip_violation(model, xs, us, mc_field)
+            ok = mx <= 1e-6
             msg = (f"  {name}: jumped={xs[-1, 0]:.4f} "
                    f"safe={float(jnp.mean(ok)):.4f}")
             if alpha is not None:

@@ -10,12 +10,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from riskaversetrajopt_tpu import runtime
 from riskaversetrajopt_tpu.core.config import HopperScenario
 from riskaversetrajopt_tpu.experiments import common
 from riskaversetrajopt_tpu.models.hopper import HopperModel
 
 
 def main(argv=None):
+    runtime.configure()
     ap = argparse.ArgumentParser()
     ap.add_argument("--num-fields", type=int, default=10)
     ap.add_argument("--seed", type=int, default=1)

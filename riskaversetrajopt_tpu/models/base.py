@@ -7,7 +7,7 @@ into pure functions over an explicit per-sample uncertainty pytree ``omega``:
 
 - ``drift(x, u, omega)``            -- the SDE drift b(x, u, omega)
 - ``dispersion(x, u, omega, dW)``   -- sigma(x, u, omega) @ dW, in matvec form
-  (TPU-first: the reference materializes a dense n_x*n_x sigma matrix
+  (the reference materializes a dense n_x*n_x sigma matrix
   per step; every sigma in these workloads is a scaled identity on a state
   block, so the matvec form avoids an n_x^2 intermediate entirely)
 - ``x0(omega)``                     -- per-sample initial state
@@ -36,11 +36,11 @@ Omega = Any  # per-sample uncertainty pytree
 class ConstBind:
     """Pass array-valued model constants across jit boundaries as ARGUMENTS.
 
-    On the target TPU runtime, a `lax.scan` body that touches an array
-    rooted in a closure-baked jaxpr CONSTANT pays ~1.4 ms PER STEP (the
-    same value arriving as a jit argument costs ~0.1 ms for the whole
-    loop; measured round 2 — the 20-step drone rollout scan went 29 ms ->
-    ~1 ms). Models declare their array constants in `const_attrs`;
+    A `lax.scan` body that touches an array rooted in a closure-baked
+    jaxpr CONSTANT paid a large per-step cost on the runtime this was first
+    built for; passed as jit arguments, the constants cost nothing per
+    step. Whether baking costs anything on the H100 is not measured.
+    Models declare their array constants in `const_attrs`;
     `consts()` gathers them into a pytree to pass across the jit boundary
     and `bind()` returns a shallow copy of the model with the traced
     values swapped in, so every downstream use is argument-rooted.

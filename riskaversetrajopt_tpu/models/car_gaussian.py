@@ -41,9 +41,8 @@ class GaussianCarResult(NamedTuple):
 
 class GaussianCarPlanner(ConstBind):
     OSQP_TOL = 1e-8  # reference override (driving_gaussian.py:27)
-    # array constants arg-rooted across jit boundaries (models/base.ConstBind:
-    # closure-baked jaxpr constants charge ~1.4 ms per loop step on the
-    # target TPU runtime) — see solve_jitted
+    # array constants arg-rooted across jit boundaries (models/base.ConstBind)
+    # — see solve_jitted
     const_attrs = ("Sigma0", "_nominal_omega", "_state_init", "_goal",
                    "_R_diag")
 
@@ -290,5 +289,5 @@ class GaussianCarPlanner(ConstBind):
     def solve_jitted(self, ipm_cfg: IPMConfig = None) -> GaussianCarResult:
         """`solve` with the planner's array constants passed as jit
         ARGUMENTS (ConstBind) instead of closure-baked constants — the
-        TPU-ready entry point. Numerically identical to jit(self.solve)."""
+        accelerator entry point. Numerically identical to jit(self.solve)."""
         return jax.jit(lambda c: self.bind(c).solve(ipm_cfg))(self.consts())

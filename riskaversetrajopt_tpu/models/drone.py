@@ -28,9 +28,8 @@ class DroneOmega(NamedTuple):
 class DroneModel(ConstBind):
     """SAA drone model. Reference: drone/drone_risk.py Model (lines 70-213)."""
 
-    # array constants that must cross jit boundaries as arguments (see
-    # models/base.ConstBind: constant-rooted arrays inside the rollout scan
-    # cost ~1.4 ms/step on the target TPU runtime)
+    # array constants that cross jit boundaries as arguments (see
+    # models/base.ConstBind)
     const_attrs = ("_fb_gain", "_obs_positions", "_x_init", "_x_final")
 
     def __init__(self, scn: DroneScenario = DroneScenario()):

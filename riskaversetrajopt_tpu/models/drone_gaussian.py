@@ -41,8 +41,7 @@ class GaussianDroneResult(NamedTuple):
 
 class GaussianDronePlanner(ConstBind):
     # array constants arg-rooted across jit boundaries (ConstBind rationale
-    # in models/base and ops/nlp_ipm — closure-baked jaxpr constants charge
-    # ~1.4 ms per loop step on the target TPU runtime)
+    # in models/base and ops/nlp_ipm)
     const_attrs = (
         "_x_init", "_x_final", "_obs_positions", "_obs_radii", "_R",
         "_nominal_omega",

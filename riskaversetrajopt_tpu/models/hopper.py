@@ -324,9 +324,8 @@ class HopperModel(ConstBind):
 
         Returns (f(Z, p), g(Z, p), params, g_L, g_U, n_eq, xL, xU): the
         friction-field arrays and the model's array constants travel in the
-        `params` pytree instead of being closure-baked into the jaxpr (the
-        target TPU runtime charges ~1.4 ms per loop step touching a baked
-        constant — ops/nlp_ipm.solve_nlp notes). `params` is also the vmap
+        `params` pytree instead of being closure-baked into the jaxpr
+        (ops/nlp_ipm.solve_nlp notes). `params` is also the vmap
         axis for batched NLP solves over independent friction-field draws."""
         M = field.intensities.shape[0]
         params = {"field": field, "mc": self.consts()}

@@ -185,11 +185,11 @@ class _State(NamedTuple):
     interval: jnp.ndarray
     # adaptive-rho epoch handshake: the inner (fixed-rho) loop exits with
     # refactor=True and the requested rho in rho_next; the outer loop
-    # refactorizes and re-enters. Keeping factorization OUT of the hot
-    # while body matters: a lax.cond whose branch runs full operator
-    # sweeps inside the iterating while body doubles the per-iteration
-    # cost of the WHOLE loop on the TPU toolchain (measured 243 vs 123
-    # us/iter at M=1000, tools/bisect_iter3.py / bisect_iter4.py).
+    # refactorizes and re-enters. Factorization is kept OUT of the hot
+    # while body: a lax.cond whose branch runs full operator sweeps inside
+    # the iterating while body was measured to double the per-iteration
+    # cost of the whole loop on the accelerator this was first built for
+    # (PARITY.md round 4); not measured on the H100.
     refactor: jnp.ndarray
     rho_next: jnp.ndarray
 
@@ -250,7 +250,7 @@ def admm_solve(
     factor0 = sops.factorize(rho_vector(ls, us, rho0), sigma_vec)
 
     # Periodic KKT refinement: each refinement pass inside kkt_solve costs
-    # 2 extra G-sweeps (the HBM-bound core of the structured iteration), so
+    # 2 extra G-sweeps (the memory-heavy core of the structured iteration), so
     # cfg.kkt_refine_period > 1 runs the refined solve only on every P-th
     # inner iteration and the cheap unrefined solve otherwise.
     period = int(getattr(cfg, "kkt_refine_period", 1))
@@ -361,15 +361,13 @@ def admm_solve(
         UNCONDITIONALLY at every termination check.
 
         A two-stage design (free prescreen from cached matvec deltas +
-        lax.cond-gated exact confirmation) was tried and REMOVED: on this
-        TPU toolchain a lax.cond whose branch contains full operator
-        sweeps, placed inside the solve loop's while body, doubles the
-        per-iteration cost of the entire loop even when the branch never
-        executes (measured 243 vs 123 us/iter at M=1000,
-        tools/bisect_iter3.py / bisect_iter4.py — the conditional defeats
-        the compiler's buffer/pipeline scheduling of the hot G-streaming
-        ops). The three explicit sweeps per check amortize to ~2 us per
-        ADMM iteration and are effectively free."""
+        lax.cond-gated exact confirmation) was tried and REMOVED: a
+        lax.cond whose branch contains full operator sweeps, placed inside
+        the solve loop's while body, doubled the per-iteration cost of the
+        entire loop even when the branch never executed, on the
+        accelerator this was first built for (PARITY.md round 4; not
+        measured on the H100). The three explicit sweeps per check are
+        amortized over check_every iterations."""
         dy = (y - s.y) * E / c  # unscaled dual delta
         dx = (x - s.x) * D  # unscaled primal delta
         return certificate_terms(
@@ -394,7 +392,7 @@ def admm_solve(
         Circular buffer (single-row dynamic update) rather than a roll:
         the least-squares combination is row-order-independent, and
         rolling two (depth, nw) buffers every iteration costs ~4x the
-        history's size in HBM traffic per iteration."""
+        history's size in memory traffic per iteration."""
         slot = jnp.mod(cnt, depth)
         w_hist = lax.dynamic_update_index_in_dim(w_hist, g, slot, 0)
         f_hist = lax.dynamic_update_index_in_dim(f_hist, f, slot, 0)
@@ -557,7 +555,7 @@ def admm_solve(
             # event-driven handshake below freezes an element that wants a
             # refactor until the whole batch exits the inner loop, which
             # desynchronizes rho adaptation and inflates both iteration
-            # counts and wall time (tools/probe_batched4.py).
+            # counts and wall time (PARITY.md round 3).
             def outer_body(c):
                 s, factor = c
                 end = jnp.minimum(s.it + epoch, cfg.max_iter)
@@ -731,7 +729,7 @@ def _polish(ops, q, l, u, x, y, z, cfg, eq_mask=None, active_masks=None):
 class DenseQPOps:
     """Dense instantiation: P (n,n), A (m,n) materialized; KKT solved by
     Cholesky of cP + diag(sigma) + A^T R A with optional iterative refinement
-    (helps f32 on TPU, SURVEY.md section 7.3.1-2)."""
+    (helps f32, SURVEY.md section 7.3.1-2)."""
 
     def __init__(self, P, A, kkt_refine_iters: int = 1):
         self.P = P

@@ -1,5 +1,5 @@
 """Double-single (compensated-f32) ADMM for the structured SAA QP: the
-on-chip high-precision solver leg that tracks the reference's x64 branch.
+f32-only high-precision solver leg that tracks the reference's x64 branch.
 
 WHY. The post-gating SCP subproblems have degenerate optimal faces: which
 point of the optimal set a solver returns is decided by its iterate PATH,
@@ -9,7 +9,7 @@ f32 iterates inject ~6e-8 noise per iteration and land on macroscopically
 different face points (l2 vs golden 0.03-0.3), which no amount of residual
 certification (ops/qp_refine.py) can undo after the fact. The reference
 sidesteps all of this by running OSQP in f64 on CPU (drone_risk.py:13-18);
-TPUs have no f64 units.
+this backend was written for an accelerator without f64 units.
 
 HOW. This module runs the SAME OSQP-semantics ADMM iteration as
 ops/admm.py, but with the iterate triple (x, z, y) carried as
@@ -38,7 +38,7 @@ engines, which the branch is measured to tolerate (PARITY.md: independent
 engines agree to 2e-4 at M=1000).
 
 Cost: 2 ds Jacobian sweeps per iteration + 2 per ds KKT pass; each ds
-sweep is ~6-9x the HBM traffic of its f32 counterpart (exact-product
+sweep is ~6-9x the memory traffic of its f32 counterpart (exact-product
 splitting + pairwise compensated reduction). This is the parity leg, not
 the speed leg.
 

@@ -4,7 +4,7 @@ The reference estimates AVaR by solving the Rockafellar-Uryasev LP as an OSQP
 QP with M+1 variables and 2M rows per evaluation (car/driving.py:639-671,
 drone/drone_risk.py:663-695, hopper/hopper.py:926-958) and VaR by a sort-order
 statistic (drone/drone_main_plot.py:640-652). The QP's optimizer t* is exactly
-the empirical alpha-VaR, so on TPU both reduce to one sort — no solver. A
+the empirical alpha-VaR, so on the device both reduce to one sort — no solver. A
 QP-backed path is kept for parity validation (tests cross-check the two).
 """
 

@@ -1,6 +1,6 @@
 """Double-single (two-float) compensated arithmetic: the f32-at-1e-8 path.
 
-TPU XLA has no float64; the reference's tightest solver setting — OSQP at
+Without float64 units, the reference's tightest solver setting — OSQP at
 eps_abs = eps_rel = 1e-8 for the car Gaussian baseline
 (car/driving_gaussian.py:27) — is below what a plain f32 iterate can even
 REPRESENT (relative roundoff ~6e-8). SURVEY.md section 7.3.1-2 calls for
@@ -20,7 +20,7 @@ provides it:
   (tests/test_ds.py runs the actual car-Gaussian subproblem in f32).
 
 All functions are dtype-generic; in f64 they give ~1e-30-class residuals
-(quad-double-single), but the intended use is f32 on TPU.
+(quad-double-single), but the intended use is f32-only arithmetic.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Jit-safe compensated (double-single) arithmetic for the f32 TPU path.
+"""Jit-safe compensated (double-single) arithmetic for the f32-only path.
 
 `ops/ds.py` provides Dekker-style error-free transforms but is EAGER-ONLY:
 XLA contracts mul-followed-by-add chains into FMA, which changes the
@@ -187,9 +187,9 @@ def contract_mkn_n(G, x_h, x_l, chunk=None):
     `chunk`: process the sample axis in chunks of this size (lax.map).
     The unchunked form materializes ~4 full (M, K, n) intermediates plus
     the pairwise-reduction ladder; past M ~ 512 (drone shapes) that
-    working set stops fitting the fusion budget and the sweep falls off
-    a ~10x cliff on TPU (measured: 150 us -> 1.4 ms per sweep from
-    M=512 to M=1000). Chunking bounds the live set; cross-chunk order
+    working set stopped fitting the fusion budget and the sweep fell off
+    a ~10x cliff on the accelerator this was first built for (not
+    measured on the H100). Chunking bounds the live set; cross-chunk order
     is unchanged (the reduction is over the minor axes only)."""
     if chunk is None or G.shape[0] <= chunk:
         p, e = two_prod(G, x_h[None, None, :])

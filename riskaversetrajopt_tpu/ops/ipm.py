@@ -7,11 +7,11 @@ where the FIRST n_eq rows are equalities (l_i == u_i) handled exactly via a
 dense Schur complement on their multipliers, and the remaining rows get
 logarithmic barriers on their finite sides.
 
-Why IPM on TPU: ADMM takes O(10^3-10^4) cheap serial iterations on the
+Why IPM: ADMM takes O(10^3-10^4) cheap serial iterations on the
 degenerate LP-like CVaR epigraph QPs (each iteration is a small latency-bound
 matvec), while Mehrotra converges in O(10-30) heavy iterations whose dominant
 costs — the batched Jacobian contraction inside factorize() and a small dense
-Cholesky — map straight onto the MXU. The same operator interface as
+Cholesky — are large dense matmul-shaped work. The same operator interface as
 ops/admm.py is reused (factorize / kkt_solve with per-row weights), so the
 structured sample-sharded SAA operators drive both backends. This solver is
 also the foundation of the NLP solver replacing IPOPT for the hopper workload
@@ -156,8 +156,7 @@ def _solve_qp_ipm_raw(
         + 1.0
     )
     # barrier-weight safeguard, dtype-aware: f32 KKT factorizations lose the
-    # small-pivot information once weights pass ~1e6 (TPU runs f32; CPU tests
-    # run f64)
+    # small-pivot information once weights pass ~1e6
     _W_MAX = 1e13 if dtype == jnp.float64 else 3e6
 
     class _S(NamedTuple):

@@ -156,11 +156,10 @@ def solve_nlp(
     baseline->SAA warm-start workflow maps to calling this twice,
     hopper/README.md:9-25).
 
-    TPU arg-rooting (models/base.ConstBind rationale): on the target TPU
-    runtime an array rooted in a closure-baked jaxpr CONSTANT costs ~1.4 ms
-    per loop step that touches it, so a barrier solve whose f/g closures
-    capture problem arrays (e.g. the hopper friction field) pays seconds of
-    pure overhead. Pass those arrays as the `params` pytree instead — the
+    Arg-rooting (models/base.ConstBind rationale): a barrier solve whose
+    f/g closures capture problem arrays (e.g. the hopper friction field)
+    bakes them into the jaxpr as constants. Pass those arrays as the
+    `params` pytree instead — the
     callbacks are then invoked as ``f_fn(Z, params)`` / ``g_fn(Z, params)``
     — and jit `solve_nlp` with (Z0, params, bounds) as traced arguments.
     When bounds are traced, the host-side equality reclassification cannot

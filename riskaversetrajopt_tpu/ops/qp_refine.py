@@ -1,5 +1,5 @@
 """Iterative refinement for the structured SAA QP: true 1e-6..1e-8
-KKT residuals from f32-only TPU arithmetic.
+KKT residuals from f32-only arithmetic.
 
 Plain f32 ADMM stalls near unscaled residuals of ~1e-5 at M=1000 (the
 iterate update and the residual evaluation both round at ~6e-8 relative of
@@ -7,8 +7,8 @@ O(1..10) magnitudes), while golden-trajectory tracking needs QP solves at
 eps<=1e-6 (scp/driver.py: the SCP endpoint error amplifies the QP
 tolerance ~1000x through the post-gating transition iterations). The
 reference sidesteps this by running OSQP in f64 on CPU
-(car/driving.py:13-18); TPUs have no f64. This module closes the gap the
-TPU-native way, with QP-level iterative refinement in the style of
+(car/driving.py:13-18). This module closes the gap without f64 units,
+with QP-level iterative refinement in the style of
 Gleixner-et-al. LP/QP refinement:
 
 1. solve the QP with the ordinary f32 structured ADMM to its reliable
@@ -102,11 +102,9 @@ def _ds_chunk(M):
 
     The unchunked compensated sweep materializes ~4 full (M, K, n)
     intermediates plus the pairwise-reduction ladder; past M ~ 512
-    (drone shapes) that working set blows the TPU fusion budget and the
-    sweep falls off a ~10x cliff (hardware sweep, M=1000 per-ADMM-iter:
-    unchunked 5.74 ms; chunk 512/256/128/96/64 -> 841/781/603/676/667
-    us). 128 is the measured optimum; chunking below M=256 is overhead
-    (M=256 unchunked: 380 us/iter)."""
+    (drone shapes) that working set stopped fitting the fusion budget of
+    the accelerator this was first built for, where chunk 128 measured
+    best; not measured on the H100."""
     return 128 if M > 256 else None
 
 

@@ -6,8 +6,8 @@ with decision vector z = [us (n_u*S) | ys (M) | slack | t_risk] and row blocks
     blocks (M*K) | slack row | control rows (n_u*S) ]
 (car/driving.py:301-373, drone/drone_risk.py:282-374). That matrix is
 (1 + M + M*K + ...) x (n_u*S + M + 2): for M = 1000 drone samples it has ~61k
-rows — materializing it densely on-chip would turn every ADMM iteration into a
-260 MB HBM sweep.
+rows — materializing it densely on the device would turn every ADMM iteration
+into a 260 MB (f32) sweep of device memory.
 
 Here the QP is represented STRUCTURALLY: the only large object is the stack of
 per-sample constraint Jacobians G (M, K, n). All products with A decompose
@@ -215,7 +215,7 @@ class SAAQPOps:
                  kkt_chol_inverse=False):
         # kkt_refine_mode: residual operator for the in-iteration KKT
         # refinement. "true" recomputes N x through matvec_A/rmatvec_A — two
-        # extra G-sweeps per pass, i.e. it doubles the HBM traffic of the
+        # extra G-sweeps per pass, i.e. it doubles the memory traffic of the
         # ADMM iteration at M=1000 — and corrects BOTH the triangular-solve
         # roundoff and the factor-formation (einsum-accumulation) error.
         # "factored" computes the residual against the STORED Schur blocks
@@ -225,20 +225,18 @@ class SAAQPOps:
         # over K, then double-single pairwise reduction over the M axis —
         # ops/dsjit.py), so "factored" matches "true" up to the
         # residual-evaluation noise both modes share — at half the
-        # per-iteration HBM traffic (2 G-sweeps instead of 4). Round-2
-        # hardware measured "factored" SLOWER than "true"; that was with
-        # UNcompensated formation (f32 einsum over M*K=63000 terms, ~3e-5
-        # relative error) which the factored residual cannot see.
+        # per-iteration memory traffic (2 G-sweeps instead of 4). Without
+        # compensated formation (f32 einsum over M*K=63000 terms, ~3e-5
+        # relative error, which the factored residual cannot see) "factored"
+        # needs more iterations than "true" (PARITY.md round 2).
         # factorize_compensated: None = auto (on for f32, off under x64
         # where plain accumulation is already ~1e-13).
         # kkt_chol_inverse: per-iteration Schur solve via a PRECOMPUTED
-        # explicit inverse (one (n+2, n+2) matvec on the MXU) instead of two
-        # sequential triangular solves. On TPU the 62-dim solve_triangular
-        # is a latency-bound sequential op; with refinement the kkt_solve
-        # runs FOUR of them per ADMM iteration, dominating the measured
-        # ~100 us/iter at M=1000 (the factored-mode HBM floor is ~40 us —
-        # tools/probe_instance_var.py). The inverse is formed once per rho
-        # epoch from the jittered Cholesky (cost: one 62-rhs triangular
+        # explicit inverse (one (n+2, n+2) matvec) instead of two
+        # sequential triangular solves. A 62-dim solve_triangular is a
+        # latency-bound sequential op, and with refinement the kkt_solve
+        # runs FOUR of them per ADMM iteration. The inverse is formed once
+        # per rho epoch from the jittered Cholesky (cost: one 62-rhs triangular
         # solve pair, amortized over hundreds of iterations); its
         # cond(S)*eps application error is the same order as the
         # triangular solve's and the in-iteration residual refinement
@@ -261,7 +259,7 @@ class SAAQPOps:
         self.p_diag, _ = build_objective(st, data)
         self.Malpha = st.M * data.alpha
         self.kkt_refine_iters = kkt_refine_iters
-        # Per-iteration G-sweep MXU precision (see SolverConfig.sweep_precision);
+        # Per-iteration G-sweep matmul precision (see SolverConfig.sweep_precision);
         # the factorization einsums below stay HIGHEST/compensated — they run
         # once per rho epoch, not per iteration.
         self.sweep_precision = {
@@ -533,7 +531,7 @@ class SAAQPOps:
         chol0 = jnp.linalg.cholesky(S + base * scale * eye_v)
         _, chol_S = jax.lax.while_loop(jcond, jstep, (base, chol0))
         if self.kkt_chol_inverse:
-            # explicit S^-1 for the MXU-matvec per-iteration solve (see
+            # explicit S^-1 for the matvec per-iteration solve (see
             # __init__): one batched 62-rhs triangular solve pair per rho
             # epoch replaces 4 sequential solves per ADMM iteration
             t1 = jax.scipy.linalg.solve_triangular(chol_S, eye_v, lower=True)
@@ -544,7 +542,7 @@ class SAAQPOps:
             S_op = chol_S
         # Sherman-Morrison denominator 1 + beta * sum(1/D): loop-invariant
         # per factorization; with kkt_refine_iters=1 the iteration calls
-        # _solve_yy 8x, and each (M,)-reduction is pure latency on TPU
+        # _solve_yy 8x, and each (M,)-reduction is pure latency
         denom_yy = 1.0 + beta * jnp.sum(1.0 / D)
         # N_vv rides along for the "factored" refinement mode (tiny:
         # (n+2)^2); unused by mode "true"

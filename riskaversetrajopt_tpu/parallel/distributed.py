@@ -3,21 +3,21 @@ process-local data placement.
 
 The reference is strictly single-process (jax_platform_name pinned to 'cpu'
 in every script header, car/driving.py:18); its only parallelism is vmap over
-the M samples. The TPU-native equivalent (SURVEY.md section 2.3, row
+the M samples. The multi-host equivalent (SURVEY.md section 2.3, row
 "Distributed comm backend") is:
 
 - `jax.distributed.initialize` over DCN for process discovery,
 - one global ('batch', 'samples') Mesh spanning every chip of every host,
   host-major, so the `samples` axis shards host-locally first and the SAA
   reductions (the (n+2)^2 Schur block, sum_i y_i, CVaR row sums — see
-  ops/saa_qp.py) ride ICI within a host before crossing DCN,
+  ops/saa_qp.py) stay within a host before crossing the network,
 - process-local data placement: each host materializes only its own M/num
   hosts slice of the uncertainty pytree and the global array is assembled
   with `jax.make_array_from_process_local_data` (no host ever holds the full
   (M, K, n) Jacobian stack).
 
 On CPU the same code paths run multi-process with gloo collectives — that is
-how tests/test_distributed.py validates the layer without TPU pods
+how tests/test_distributed.py validates the layer without a GPU cluster
 (SURVEY.md section 4's prescription). Run
 
     python -m riskaversetrajopt_tpu.parallel.distributed --selftest ...
@@ -45,8 +45,8 @@ def initialize(
 ) -> None:
     """Initialize the JAX distributed runtime (idempotent).
 
-    With no arguments, jax auto-discovers cluster topology on TPU pods (GKE /
-    Cloud TPU metadata) and degrades to single-process elsewhere. Explicit
+    With no arguments, jax auto-discovers cluster topology where a cluster
+    manager describes it, and degrades to single-process elsewhere. Explicit
     arguments support simulated pods (multi-process CPU with gloo
     collectives) and bring-your-own cluster managers via the standard
     JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars.

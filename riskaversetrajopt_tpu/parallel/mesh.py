@@ -1,4 +1,4 @@
-"""Device-mesh and sharding layer: SAA sample-parallelism over TPU chips.
+"""Device-mesh and sharding layer: SAA sample-parallelism over devices.
 
 The reference's only parallelism is single-process vmap over the M samples
 (car/driving.py:206-214, drone/drone_risk.py:157-162). Here the sample axis IS
@@ -7,7 +7,7 @@ sharded over a `samples` mesh axis, and XLA GSPMD propagates the sharding
 through the vmapped linearization and the structured QP operators — the
 per-sample Jacobian stack G (M, K, n) stays chip-local, and the only
 communication is the all-reduce of the (n+2)x(n+2) Schur block and the small
-CVaR couplings (sum_i y_i, row sums) over ICI, exactly the Schur-complement
+CVaR couplings (sum_i y_i, row sums), exactly the Schur-complement
 split called for in SURVEY.md section 5.
 
 An optional `batch` axis shards independent problem instances (the

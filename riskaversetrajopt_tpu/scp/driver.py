@@ -39,6 +39,11 @@ from riskaversetrajopt_tpu.ops.saa_qp import (
 )
 
 
+# backends whose QPSolution.rho is meaningful (ADMM family); the others carry
+# the previous rho forward untouched
+RHO_BACKENDS = ("admm", "admm-ds")
+
+
 class SCPResult(NamedTuple):
     us: jnp.ndarray  # (S, n_u) final controls
     xs: jnp.ndarray  # (M, S+1, n_x) trajectories under the final controls
@@ -86,7 +91,6 @@ class SAATrajOpt:
         slack_penalty: Optional[float] = None,
         baseline_pad: float = 0.0,
         dtype=jnp.float64,
-        pallas_interpret: bool = False,
         # (Mesh, axis_name): pin every (M, ...)-leading operator
         # intermediate to this sample axis with explicit sharding
         # constraints instead of relying on GSPMD's cost model (see
@@ -116,15 +120,17 @@ class SAATrajOpt:
         # reference gets from OSQP_TOL=1e-3 + polish. Standalone QP solves
         # keep SolverConfig's polish=True default (OSQP parity).
         # kkt_refine_iters=1: each in-loop refinement pass costs 2 extra
-        # G-sweeps (the ADMM iteration is HBM-bound: 68.4us vs 44.5us/iter
-        # at M=1000 TPU f32), but END-TO-END it wins decisively — the
-        # refined KKT solves make consecutive warm-started solutions
-        # consistent, so the whole SCP needs ~4x fewer ADMM iterations
-        # (measured M=1000 TPU f32, eps 1e-4 + polish: 5725 total iters /
-        # 1.42s / l2_final 5.7e-3 with refine=1 vs 22450 / 2.9s / 1.4e-1
-        # with refine=0).
+        # G-sweeps per ADMM iteration, but the refined KKT solves make
+        # consecutive warm-started solutions consistent, so the whole SCP
+        # needs ~4x fewer ADMM iterations (M=1000 f32, eps 1e-4 + polish:
+        # 5725 total iterations, l2_final 5.7e-3, with refine=1 vs 22450 and
+        # 1.4e-1 with refine=0; PARITY.md round 3).
+        # max_iter=50000: at M=1000 (seed 0, alpha 0.2) the post-gating
+        # transition QP certifies at eps 1e-6 after 33,500 f64 iterations; a
+        # 20000 cap left it uncertified (l2 vs golden 1.7e-4 capped, 1.9e-4
+        # certified; chip_smoke.py drone_f64).
         self.admm_cfg = admm_cfg or SolverConfig(
-            eps_abs=1e-6, eps_rel=1e-6, max_iter=20000,
+            eps_abs=1e-6, eps_rel=1e-6, max_iter=50000,
             polish=False, kkt_refine_iters=1,
         )
         if ir_cfg is None:
@@ -137,7 +143,7 @@ class SAATrajOpt:
             and qp_backend != "admm"
         ):
             # the inexact-SCP schedule threads a traced eps multiplier into
-            # ops/admm.admm_solve; the IR and pallas backends run their own
+            # ops/admm.admm_solve; the other backends run their own
             # termination and would silently ignore it — fail loudly
             raise ValueError(
                 "SolverConfig.eps_sched_iters is only implemented for the "
@@ -148,7 +154,6 @@ class SAATrajOpt:
         self.hybrid_cap = hybrid_cap
         self.hybrid_prox = hybrid_prox
         self.dtype = dtype
-        self.pallas_interpret = pallas_interpret
         scn = model.scn
         n = model.S * model.n_u
         if scp_cfg is None:
@@ -191,9 +196,8 @@ class SAATrajOpt:
     def _define(self, us_prev, omegas, alpha, M, model=None, p_diag_u=None):
         # `model`/`p_diag_u` are the ARGUMENT-ROOTED variants passed through
         # the jit boundary by solve()/solve_instrumented() (models/base
-        # ConstBind: closure-baked array constants inside the rollout scan
-        # cost ~1.4 ms per scan step on the target TPU runtime — the
-        # 20-step define phase measured 29 ms baked vs ~1 ms arg-rooted).
+        # ConstBind: array constants travel as jit arguments instead of
+        # being baked into the rollout scan).
         model = self.model if model is None else model
         p_diag_u = self.p_diag_u if p_diag_u is None else p_diag_u
         us_prev_vec = us_prev.reshape(-1)
@@ -249,8 +253,8 @@ class SAATrajOpt:
             return admm_solve()
         elif self.qp_backend == "admm-ir":
             # f32-native tight tolerances: plain f32 ADMM stalls near
-            # unscaled residuals ~1e-5 at M=1000 (measured on TPU: 13/15
-            # QPs cap at eps 1e-6), while golden tracking needs 1e-6.
+            # unscaled residuals ~1e-5 at M=1000 (13/15 QPs cap at eps
+            # 1e-6; PARITY.md round 4), while golden tracking needs 1e-6.
             # QP-level iterative refinement (ops/qp_refine.py) runs the
             # f32 ADMM at its reliable working tolerance and contracts the
             # compensated true residuals by ~1/Delta per correction round.
@@ -278,63 +282,6 @@ class SAATrajOpt:
                 st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0, rho0=rho0,
                 ds_kkt_passes=getattr(self.admm_cfg, "ds_kkt_passes", 1),
             )
-        elif self.qp_backend in ("admm-pallas", "admm-pallas-f"):
-            # Demoted to experimental (round-4 decision): every contraction
-            # form probed for the fused kernels lands 5-10x off peak on
-            # this Mosaic toolchain while the XLA einsum iteration sits at
-            # its HBM roofline — see ops/pallas/experimental/README.md for
-            # the measured ceiling. The kernels remain bitwise-validated
-            # and opt-in under the underscore names.
-            raise ValueError(
-                f"'{self.qp_backend}' is experimental on this toolchain "
-                f"(measured 5-10x off peak; the production XLA path is "
-                f"faster). Opt in explicitly with "
-                f"qp_backend='_{self.qp_backend}', or use 'admm'."
-            )
-        elif self.qp_backend == "_admm-pallas":
-            # Fused-kernel ADMM (ops/pallas/experimental/saa_admm.py).
-            # Envelope: f32, Mp <= 1024 per device (round-2 probes: the
-            # round-1 faults at Mp=1024 / embedded-in-jit were the Mosaic
-            # 16MB default scoped-vmem budget; with the raised
-            # vmem_limit_bytes both standalone and embedded runs are clean
-            # at M=1000). Falls back to the XLA path outside the envelope.
-            from riskaversetrajopt_tpu.ops.pallas.experimental import (
-                saa_admm as _pk,
-            )
-
-            if self.dtype != jnp.float32 or _pk.kernel_dims(st).Mp > 1024:
-                return admm_solve()
-            x0 = warm[0] if warm is not None else None
-            y0 = warm[1] if warm is not None else None
-            rho0 = self._warm_rho(warm, scp_iter)
-            return _pk.solve_saa_qp_pallas(
-                st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0,
-                interpret=self.pallas_interpret, rho0=rho0,
-            )
-        elif self.qp_backend == "_admm-pallas-f":
-            # Lane-flat fused kernel (experimental/saa_admm_f.py): both
-            # Jacobian sweeps as single (8, X)@(X, Y) MXU matmuls over a
-            # VMEM-resident 2D G stack. Same envelope/fallback as
-            # _admm-pallas (2 resident G copies: Mp*Kp*128*8 bytes vs the
-            # 110 MB scoped-vmem budget).
-            from riskaversetrajopt_tpu.ops.pallas.experimental import (
-                saa_admm as _pk,
-                saa_admm_f as _pkf,
-            )
-
-            d = _pk.kernel_dims(st, 32)
-            if (
-                self.dtype != jnp.float32
-                or d.Mp * d.Kp * 128 * 8 > 90 * 1024 * 1024
-            ):
-                return admm_solve()
-            x0 = warm[0] if warm is not None else None
-            y0 = warm[1] if warm is not None else None
-            rho0 = self._warm_rho(warm, scp_iter)
-            return _pkf.solve_saa_qp_pallas_f(
-                st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0,
-                interpret=self.pallas_interpret, rho0=rho0,
-            )
         elif self.qp_backend == "hybrid-prox":
             # demoted out of the public backend set: at the flagship size
             # (M=1000/f32) the proximal rescue lands off the warm iterate's
@@ -354,7 +301,7 @@ class SAATrajOpt:
             # keeps the warm path; if it does not certify, a PROXIMAL
             # interior-point solve (P + sigma I, q - sigma*x_admm) centered
             # at the ADMM iterate computes (approximately) the projection
-            # of that iterate onto the optimal face in ~30 MXU-heavy
+            # of that iterate onto the optimal face in ~30 matmul-heavy
             # iterations — preserving the branch that plain IPM loses on
             # degenerate faces — and a short warm ADMM leg certifies the
             # result at the target tolerance.
@@ -404,7 +351,7 @@ class SAATrajOpt:
             # shift (the linearized obstacle rows switch on all at once,
             # drone_risk.py:413-417) and take thousands of warm-startless ADMM
             # iterations; Mehrotra gets into the solution's basin in ~20-40
-            # heavy MXU-friendly iterations. The handoff is WITHIN the QP:
+            # heavy matmul-friendly iterations. The handoff is WITHIN the QP:
             # ADMM warm-started from the IPM point finishes to the certified
             # unscaled tolerance (and keeps the prox-to-previous-iterate
             # behavior that stabilizes the trust-region-free SCP recursion —
@@ -483,11 +430,10 @@ class SAATrajOpt:
         repeat sweep axis, drone_risk.py:498-503, solved serially there).
 
         This is the large-M batched-problem scheduler. Lockstep `vmap`
-        batching pays off where per-solve latency dominates (small M: 2.7-3x
-        at M=50), but at M=1000 the ADMM iteration is HBM-bandwidth-bound
-        (4 G-sweeps x 15.1 MB/iter at ~819 GB/s) so running B instances in
-        lockstep cannot beat serial — and vmap makes every instance pay the
-        max iteration count over the batch. Scanning instead runs each
+        batching pays off where per-solve latency dominates (small M), but
+        it makes every instance pay the max iteration count over the batch,
+        and at M=1000 each iteration already streams the whole G stack
+        several times. Scanning instead runs each
         instance at its OWN convergence schedule with zero per-instance
         dispatch/host round-trips, matching serial aggregate throughput
         while keeping the whole sweep a single XLA program.
@@ -545,10 +491,6 @@ class SAATrajOpt:
         )
         if resume is not None:
             us0, warm0 = resume
-        # backends whose QPSolution.rho is meaningful (ADMM family); others
-        # carry the previous rho forward untouched
-        rho_backends = ("admm", "admm-ds", "_admm-pallas", "_admm-pallas-f")
-
         def step(carry, scp_iter):
             us_prev, warm = carry
             data = self._define(
@@ -557,7 +499,7 @@ class SAATrajOpt:
             sol = self._solve_qp(st, data, scp_iter, warm)
             rho_next = (
                 sol.rho.astype(self.dtype)
-                if self.qp_backend in rho_backends
+                if self.qp_backend in RHO_BACKENDS
                 else warm[2]
             )
             us = sol.x[:n].reshape(model.S, model.n_u)
@@ -695,7 +637,7 @@ class SAATrajOpt:
             warm = (
                 sol.x, sol.y,
                 sol.rho.astype(self.dtype)
-                if self.qp_backend in ("admm", "_admm-pallas", "_admm-pallas-f")
+                if self.qp_backend in RHO_BACKENDS
                 else warm[2],
             )
             total += t_def + t_sol

@@ -2,7 +2,7 @@
 
 The reference's profiling model is wall-clock define/solve pairs
 (car/driving.py:482-498) — preserved as first-class metrics in
-SAATrajOpt.solve_instrumented. This module adds the TPU-native layer:
+SAATrajOpt.solve_instrumented. This module adds the device layer:
 jax.profiler traces viewable in TensorBoard/Perfetto (SURVEY.md section 5).
 """
 

@@ -105,7 +105,7 @@ def test_contractions_vs_f64():
 
 
 def test_contractions_chunked_vs_f64():
-    """Chunked sample-axis contractions (the TPU fusion-budget workaround,
+    """Chunked sample-axis contractions (the fusion-budget workaround,
     ds.contract_*(chunk=...)) keep full compensated accuracy, including a
     sample count that is not a multiple of the chunk (zero padding)."""
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(9), 3)

@@ -1,4 +1,4 @@
-"""True-f32 end-to-end Gaussian-baseline workloads (the TPU regime).
+"""True-f32 end-to-end Gaussian-baseline workloads (the f32 speed regime).
 
 Both Gaussian planners default to f64 and are reference-validated on CPU
 x64; these tests certify the f32 paths end-to-end:

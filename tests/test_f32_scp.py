@@ -1,6 +1,6 @@
-"""True-f32 end-to-end SCP quality parity (the TPU bench regime).
+"""True-f32 end-to-end SCP quality parity (the bench's f32 regime).
 
-The TPU solves in f32. The f32 SCP cannot bit-track the x64 trajectory —
+The bench solves in f32. The f32 SCP cannot bit-track the x64 trajectory —
 the post-gating QPs have degenerate optimal faces whose selected optimum
 moves macroscopically under 1e-6-level linearization noise (the reference
 has the same property: its own trajectory at its own OSQP tolerance sits

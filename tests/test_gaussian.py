@@ -106,7 +106,7 @@ def test_gaussian_car_jitted_consts_path():
 
 def test_gaussian_drone_jitted_params_path():
     """solve(jitted=True) — problem arrays as jit arguments via the params
-    pytree (TPU arg-rooting, ops/nlp_ipm notes) — must reproduce the
+    pytree (arg-rooting, ops/nlp_ipm notes) — must reproduce the
     closure path."""
     from riskaversetrajopt_tpu.models.drone_gaussian import GaussianDronePlanner
     from riskaversetrajopt_tpu.ops.nlp_ipm import NLPConfig

@@ -72,7 +72,7 @@ def test_friction_field_sampling():
 def test_nlp_params_path_matches_closures():
     """The arg-rooted (jit-argument) NLP path — make_nlp_params +
     solve_nlp(params=..., row_perm=...) under an outer jax.jit — must
-    reproduce the closure path (TPU ConstBind rationale in ops/nlp_ipm)."""
+    reproduce the closure path (ConstBind rationale in ops/nlp_ipm)."""
     model = HopperModel(HopperScenario())
     M = 4
     field = model.sample_friction(jax.random.PRNGKey(3), M, "saa")
@@ -183,7 +183,7 @@ def test_cold_baseline_damped_converges_fast():
 
 
 def test_f32_cold_baseline_damped_true_dtype():
-    """TPU-f32 hopper cold start (VERDICT r3 #4): in TRUE f32 (no silent
+    """f32 hopper cold start: in TRUE f32 (no silent
     x64 promotion inside the model closures — hence a subprocess with x64
     disabled; this suite runs under jax_enable_x64), KKT equilibration +
     first-steps damping certify the COLD baseline solve in the SAME
@@ -212,7 +212,7 @@ def test_f32_cold_baseline_damped_true_dtype():
 
 
 def test_f32_saa_warm_start_two_phase():
-    """TPU-f32 hopper story (no f64 on TPU): the UNDAMPED cold baseline
+    """f32 hopper story: the UNDAMPED cold baseline
     phase in f32 falls into a poor local basin of the nonconvex contact
     problem (tiny jump ~0.03; fixed in round 4 by first-steps damping, see
     test_f32_cold_baseline_damped_true_dtype — this test covers the other

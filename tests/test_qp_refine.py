@@ -2,7 +2,7 @@
 
 The claim under test: true (f64-verified) KKT residuals at tolerances BELOW
 the plain-f32 ADMM stall floor (~1e-5 unscaled), from f32-only arithmetic,
-jitted. This is the TPU-native replacement for the reference's f64-CPU
+jitted. This is the f32-only replacement for the reference's f64-CPU
 solver accuracy (car/driving.py:13-18; the 1e-8 stress setting is
 car/driving_gaussian.py:27)."""
 

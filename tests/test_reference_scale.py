@@ -3,8 +3,7 @@ reference uses — car M=50 / 15 SCP iterations (car/driving_params.py:6-12,
 driving.py:58-60), drone M=50 / 60 SCP iterations (drone/drone_params.py:7,
 drone_risk.py:56) — asserting the SAA guarantees on the training set
 (CVaR_alpha of the max constraint <= 0 up to solver tolerance, safety
-fraction >= 1-alpha) plus out-of-sample MC behavior. Round 1 exercised
-these sizes only on TPU via bench.py; these tests pin them on CPU x64."""
+fraction >= 1-alpha) plus out-of-sample MC behavior, on CPU x64."""
 
 import jax
 import jax.numpy as jnp

@@ -260,7 +260,7 @@ def test_eps_scale_loosens_termination():
 
 def test_factored_refine_mode_solves():
     """kkt_refine_mode='factored' (residual against the stored Schur blocks,
-    ~zero extra HBM traffic) must still produce accurate KKT solves and a
+    ~zero extra memory traffic) must still produce accurate KKT solves and a
     certified ADMM solution matching the 'true'-mode solution."""
     st, data = make_problem()
     scp_iter = jnp.asarray(3)

@@ -202,7 +202,7 @@ def test_eps_schedule_rejected_on_non_admm_backends():
 
 
 def test_solve_many_matches_per_instance_solves():
-    """solve_many (the jitted scan-over-instances scheduler, the TPU-native
+    """solve_many (the jitted scan-over-instances scheduler, the on-device
     answer to the reference's serially-solved alpha x repeat sweeps,
     drone_risk.py:498-503) must be BIT-IDENTICAL to solving each instance
     independently — each instance runs at its own convergence schedule,

@@ -18,7 +18,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_default_matmul_precision", "highest")
+from riskaversetrajopt_tpu import runtime  # noqa: E402
+
+runtime.configure()
 
 from bench import _perturb, make  # noqa: E402
 

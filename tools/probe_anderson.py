@@ -3,7 +3,7 @@ flagship M=1000 SCP solve, bench speed-mode configuration.
 
 Reports per-depth: median wall over perturbed instances, total ADMM
 iterations, certification, and MC cost on the canonical instance
-(golden band: cost <= ~0.51 per VERDICT r4 item 3).
+(golden band: cost <= ~0.51).
 
 Usage: python tools/probe_anderson.py [depths...]  (default 0 5 10)
 """
@@ -16,12 +16,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_default_matmul_precision", "highest")
+from riskaversetrajopt_tpu import runtime
+
+runtime.configure()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("BENCH_PARITY", "0")
 os.environ.setdefault("BENCH_BATCH", "0")
 os.environ.setdefault("BENCH_HOPPER", "0")

@@ -1,6 +1,6 @@
-"""Probe: hopper COLD baseline NLP solve in true f32 (the TPU regime).
+"""Probe: hopper COLD baseline NLP solve in true f32.
 
-Round-3 finding (PARITY.md "TPU-f32 hopper"): the cold f32 solve departs
+Round-3 finding (PARITY.md, f32 hopper): the cold f32 solve departs
 into a poor local basin (jump ~0.02-0.03 vs x64's 1.053) during the first
 few large barrier steps. Round-4 candidates under test here:
   - kkt_ds_refine_iters: compensated (double-single) iterative refinement

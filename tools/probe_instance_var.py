@@ -1,8 +1,7 @@
 """Probe: per-instance wall time vs ADMM iteration counts (speed mode).
 
-The transition-rho sweep (probe_transition_rho.py) measured ~FLAT wall time
-(0.29-0.33 s) across a 3.4x spread in the CANONICAL instance's total ADMM
-iterations — so either (a) perturbed timed instances take far fewer
+If the transition-rho sweep (probe_transition_rho.py) shows ~flat wall time
+across a wide spread in the CANONICAL instance's total ADMM iterations, either (a) perturbed timed instances take far fewer
 iterations than the canonical seed-0 instance (branch sensitivity of the
 post-gating transition QP), or (b) the solve is overhead-dominated. This
 probe times N perturbed instances INDIVIDUALLY and reports each one's

@@ -1,12 +1,12 @@
 """Probe: post-gating transition-QP cost vs the rho it restarts from.
 
-Speed-mode profile at M=1000 (BENCH_r04_self.json): the transition QP
-(scp_iter == gate_iters, where the 1e-7-gated obstacle rows come live,
-drone_risk.py:413-417) costs 3400-7700 of the solve's ~9600 total ADMM
-iterations — its warm y is ~0 on the newly-live rows, so it is effectively
-a cold start whose iteration count is governed by the rho trajectory.
+In the speed mode at M=1000 the transition QP (scp_iter == gate_iters,
+where the 1e-7-gated obstacle rows come live, drone_risk.py:413-417) takes
+most of the solve's ADMM iterations (qp_iters in bench.py's speed record) —
+its warm y is ~0 on the newly-live rows, so it is effectively a cold start
+whose iteration count is governed by the rho trajectory.
 `scp/driver._warm_rho` restarts that QP from cfg.rho (0.1, the OSQP
-default); this probe sweeps the restart value on hardware.
+default); this probe sweeps the restart value.
 
 Usage: python tools/probe_transition_rho.py [rho ...]   (default sweep)
 Env: BENCH_M, BENCH_ITERS (reused from bench.make).
